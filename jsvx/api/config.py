@@ -1,7 +1,7 @@
 """Player/decoder configuration.
 
 The dataclass mirror of the reference's ``window['jsv_config']`` global
-(``player/easybits.player.js:335-431``) plus TPU-framework options.
+(``player/easybits.player.js:335-431``) plus jsvx options.
 Validation matches the reference (buffer_min_sec must be < buffer_sec ->
 MediaError)."""
 
@@ -38,7 +38,7 @@ class PlayerConfig:
     muted: bool = False
     preload: str = "auto"
 
-    # TPU framework options
+    # jsvx options
     quirk_oddify_zeros: bool = False   # reproduce reference dequant quirk
     use_native_parser: bool | None = None
     use_gop_scan: bool = True

@@ -55,7 +55,7 @@ class Decoder(EventDispatcher):
         self._refs = None
         self._consts = None
         self._index_cache: tuple[int, int, StartCodeIndex] | None = None
-        self._decode_backend = None
+        self._mv_cap = 0                  # sticky distinct-MV bucket
         self._pending: list[DecodedFrame] = []   # GOP-batch output queue
 
     # ------------------------------------------------------------------
@@ -275,10 +275,9 @@ class Decoder(EventDispatcher):
         if not fts:
             return None
 
-        from ..kernels.decode import (frame_to_device, make_constants,
-                                      mv_capacity_for)
-        from ..pipeline.gop import (decode_gop_scan, default_impl,
-                                    stack_device_frames, zero_refs)
+        from ..kernels.decode import frame_to_device, make_constants
+        from ..pipeline.gop import (decode_gop_scan, stack_device_frames,
+                                    zero_refs)
 
         seq = self.parser.seq
         if self._consts is None:
@@ -286,16 +285,12 @@ class Decoder(EventDispatcher):
         if self._refs is None:
             self._refs = zero_refs(seq.coded_height, seq.coded_width,
                                    n_comps=fts[0].n_comps)
-        n_mv = max(len(np.unique(ft.mb_mv.reshape(-1, 2), axis=0)) + 1
-                   for ft in fts)
-        cap, self._mv_cap = mv_capacity_for(
-            n_mv, getattr(self, "_mv_cap", 0) or 0)
+        mc_impl, cap = self._device_plan(fts)
         stacked = stack_device_frames(
             [frame_to_device(ft, mv_capacity=cap) for ft in fts])
         outs, refs = decode_gop_scan(
             stacked, self._refs, self._consts,
-            self.config.quirk_oddify_zeros,
-            mc_impl="mvset" if cap else "gather", impl=default_impl())
+            self.config.quirk_oddify_zeros, mc_impl=mc_impl)
         self._refs = refs
         frames = [DecodedFrame(planes=tuple(p[i] for p in outs),
                                picture_type=fts[i].picture_type,
@@ -329,6 +324,24 @@ class Decoder(EventDispatcher):
     # ------------------------------------------------------------------
     # Reconstruction backends
 
+    def _device_plan(self, fts: list) -> tuple[str, int]:
+        """``(mc_impl, mv_capacity)`` for decoding ``fts`` on the device
+        (:func:`jsvx.pipeline.gop.decode_backend`).  The
+        distinct-MV table is built only for the mvset formulation, with
+        a sticky grow-only capacity bucket (a recompile per frame
+        otherwise); capacity 0 means the frames overflow every bucket
+        and decode through the exact gather MC."""
+        from ..kernels.decode import mv_capacity_for
+        from ..pipeline.gop import decode_backend
+
+        mc_impl = decode_backend()
+        if mc_impl != "mvset":
+            return mc_impl, 0
+        n_mv = max(len(np.unique(ft.mb_mv.reshape(-1, 2), axis=0)) + 1
+                   for ft in fts)
+        cap, self._mv_cap = mv_capacity_for(n_mv, self._mv_cap)
+        return ("mvset" if cap else "gather"), cap
+
     def _reconstruct(self, ft: FrameTensors) -> DecodedFrame:
         ts = ft.gop_time_ms
         if self.backend == "oracle":
@@ -338,10 +351,8 @@ class Decoder(EventDispatcher):
                                        self.config.quirk_oddify_zeros)
             self._refs = planes
         else:
-            import jax
-
             from ..kernels.decode import (decode_frame_jit, frame_to_device,
-                                          make_constants, mv_capacity_for)
+                                          make_constants)
 
             seq = self.parser.seq
             if self._consts is None:
@@ -351,27 +362,11 @@ class Decoder(EventDispatcher):
 
                 self._refs = zero_refs(seq.coded_height, seq.coded_width,
                                        n_comps=ft.n_comps)
-            n_mv = len(np.unique(ft.mb_mv.reshape(-1, 2), axis=0)) + 1
-            # sticky capacity: grow-only bucket avoids a recompile per
-            # frame when distinct-MV counts fluctuate; cap 0 = this
-            # frame overflows every bucket -> exact gather MC
-            cap, self._mv_cap = mv_capacity_for(
-                n_mv, getattr(self, "_mv_cap", 0) or 0)
-            if self._decode_backend is None:
-                self._decode_backend = (
-                    "fused" if jax.devices()[0].platform != "cpu"
-                    else "xla")
-            if self._decode_backend == "fused" and cap:
-                from ..kernels.pallas_fused import decode_frame_fused_jit
-
-                planes = decode_frame_fused_jit(
-                    frame_to_device(ft, mv_capacity=cap), self._refs,
-                    self._consts, self.config.quirk_oddify_zeros)
-            else:
-                planes = decode_frame_jit(
-                    frame_to_device(ft, mv_capacity=cap), self._refs,
-                    self._consts, self.config.quirk_oddify_zeros,
-                    mc_impl="mvset" if cap else "gather")
+            mc_impl, cap = self._device_plan([ft])
+            planes = decode_frame_jit(
+                frame_to_device(ft, mv_capacity=cap), self._refs,
+                self._consts, self.config.quirk_oddify_zeros,
+                mc_impl=mc_impl)
             self._refs = planes
         return DecodedFrame(planes=planes, picture_type=ft.picture_type,
                             ts_ms=ts)

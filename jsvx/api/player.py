@@ -2,7 +2,7 @@
 decoder.
 
 Re-designs the reference player (``player/easybits.player.js``) for a
-Python/TPU runtime while keeping its observable behaviour:
+Python/JAX runtime while keeping its observable behaviour:
 
 * property surface: src (single or multi-bitrate list), currentTime,
   duration, paused/ended/seeking, muted/volume/playbackRate, loop,

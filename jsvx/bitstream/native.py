@@ -1,16 +1,21 @@
 """ctypes binding to the C++ slice/macroblock/block parser.
 
-Builds ``jsvx/native/jsv_parse.cc`` on first use (g++ -O3 shared object,
-cached next to the source) and exposes :class:`NativeStreamParser`, a
-drop-in accelerated replacement for the slice layer of
-:class:`jsvx.bitstream.parser.StreamParser`.  Falls back cleanly when no
-compiler is available: ``get_native_parser()`` returns ``None``.
+Builds ``jsvx/native/jsv_parse.cc`` on first use (g++ -O3 shared object
+next to the source) and exposes :class:`NativeStreamParser`, a drop-in
+accelerated replacement for the slice layer of
+:class:`jsvx.bitstream.parser.StreamParser`.  The library's file name
+carries a hash of the source, the compile flags and the host CPU, so a
+library built from other sources or on another machine is never
+loaded.  Falls back cleanly when no compiler is available:
+``get_native_parser()`` returns ``None``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import platform
 import subprocess
 import threading
 
@@ -19,9 +24,10 @@ import numpy as np
 from ..coding import tables as T
 from ..coding.vlc import compiled_tables
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), os.pardir, "native")
-_SRC = os.path.abspath(os.path.join(_NATIVE_DIR, "jsv_parse.cc"))
-_SO = os.path.abspath(os.path.join(_NATIVE_DIR, "libjsv_parse.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), os.pardir, "native"))
+_SRC = os.path.join(_NATIVE_DIR, "jsv_parse.cc")
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 
 _lock = threading.Lock()
 _lib = None
@@ -34,18 +40,40 @@ _ERRORS = {
 }
 
 
-def _build() -> bool:
+def _host_cpu() -> str:
+    """The host CPU's model and feature flags (what ``-march=native``
+    compiles for)."""
     try:
-        src_mtime = os.path.getmtime(_SRC)
-        if os.path.exists(_SO) and os.path.getmtime(_SO) >= src_mtime:
-            return True
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-pthread",
-             "-o", _SO, _SRC],
-            check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
-        return False
+        with open("/proc/cpuinfo") as f:
+            lines = [ln for ln in f
+                     if ln.startswith(("model name", "flags"))]
+        return "".join(sorted(set(lines)))
+    except OSError:
+        return platform.machine() + platform.processor()
+
+
+def library_path(src: bytes) -> str:
+    """Path of the parser library built from ``src`` on this host."""
+    key = hashlib.sha256(
+        src + " ".join(_FLAGS).encode() + _host_cpu().encode()
+    ).hexdigest()[:16]
+    return os.path.join(_NATIVE_DIR, f"libjsv_parse-{key}.so")
+
+
+def _build() -> str | None:
+    """Build (or reuse) this host's library; its path, or None."""
+    try:
+        with open(_SRC, "rb") as f:
+            so = library_path(f.read())
+        if os.path.exists(so):
+            return so
+        tmp = f"{so}.tmp{os.getpid()}"
+        subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC],
+                       check=True, capture_output=True, timeout=120)
+        os.replace(tmp, so)                # atomic vs concurrent builds
+        return so
+    except (OSError, subprocess.SubprocessError):
+        return None
 
 
 def _load():
@@ -53,10 +81,11 @@ def _load():
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        if not _build():
+        so = _build()
+        if so is None:
             _lib_failed = True
             return None
-        lib = ctypes.CDLL(_SO)
+        lib = ctypes.CDLL(so)
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i16p = ctypes.POINTER(ctypes.c_int16)
         i32p = ctypes.POINTER(ctypes.c_int32)
@@ -70,7 +99,6 @@ def _load():
             ctypes.c_int32, ctypes.c_int32,
             i16p, i16p, i16p, i16p, u8p, u8p, u8p, u8p,
             u8p, u8p, i16p, u8p,
-            u8p, u8p, i16p, i16p, i16p, i16p, u8p, u8p, u8p, u8p,
             ctypes.c_int32,
         ]
         u16p = ctypes.POINTER(ctypes.c_uint16)
@@ -131,14 +159,12 @@ class NativeStreamParser:
 
     def parse_picture_slices(self, data: np.ndarray, start_bit: int,
                              ft, mb_w: int, mb_h: int,
-                             seq=None, n_threads: int = 1) -> int:
+                             n_threads: int = 1) -> int:
         """Parse all slices of one picture into ``ft`` (FrameTensors).
 
         ``data`` is the full stream as a contiguous uint8 array;
         ``start_bit`` the absolute bit position just after the picture
-        header.  With ``seq`` (for its quant matrices) the per-pixel
-        dequant sideband (``ft.mult``/``ft.flags``) is emitted in the
-        same pass.  ``n_threads > 1`` fans the picture's slices out over
+        header.  ``n_threads > 1`` fans the picture's slices out over
         C++ threads (use when pictures are NOT already parsed in
         parallel).  Returns the byte offset of the picture-terminating
         start code (or len(data)).
@@ -149,27 +175,6 @@ class NativeStreamParser:
         yuva = ft.n_comps == 4
         lv_a = (_as(ft.levels[3], ctypes.c_int16) if yuva else null16)
         lnz_a = (_as(ft.lnz[3], ctypes.c_uint8) if yuva else null8)
-        if seq is not None:
-            iq = np.ascontiguousarray(seq.intra_q, dtype=np.uint8)
-            nq = np.ascontiguousarray(seq.non_intra_q, dtype=np.uint8)
-            ft.mult = tuple(np.zeros(p.shape, np.int16)
-                            for p in ft.levels)
-            ft.flags = tuple(np.zeros(p.shape, np.uint8)
-                             for p in ft.levels)
-            extra = [_as(iq, ctypes.c_uint8), _as(nq, ctypes.c_uint8),
-                     _as(ft.mult[0], ctypes.c_int16),
-                     _as(ft.mult[1], ctypes.c_int16),
-                     _as(ft.mult[2], ctypes.c_int16),
-                     (_as(ft.mult[3], ctypes.c_int16) if yuva else null16),
-                     _as(ft.flags[0], ctypes.c_uint8),
-                     _as(ft.flags[1], ctypes.c_uint8),
-                     _as(ft.flags[2], ctypes.c_uint8),
-                     (_as(ft.flags[3], ctypes.c_uint8) if yuva else null8)]
-            keep = (iq, nq)
-        else:
-            extra = [null8, null8, null16, null16, null16, null16,
-                     null8, null8, null8, null8]
-            keep = ()
         rc = self._lib.jsv_parse_picture_slices(
             self._handle, _as(data, ctypes.c_uint8), data.size, start_bit,
             mb_w, mb_h, ft.picture_type,
@@ -186,10 +191,8 @@ class NativeStreamParser:
             _as(ft.mb_intra, ctypes.c_uint8),
             _as(ft.mb_mv, ctypes.c_int16),
             _as(ft.mb_rep_add, ctypes.c_uint8),
-            *extra,
             int(n_threads),
         )
-        del keep
         if rc < 0:
             raise ValueError(
                 f"native parse failed: {_ERRORS.get(rc, rc)}")

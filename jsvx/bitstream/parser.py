@@ -1,6 +1,6 @@
 """JSV/MPEG-1 syntax parser: bitstream -> dense per-frame tensors.
 
-This is the TPU-first inversion of the reference's streaming state machine
+This is the batch inversion of the reference's streaming state machine
 (``decoders/jsv.js:426-828,1338-1525``): instead of interleaving parse and
 GPU upload per picture, a whole picture (or GOP) is parsed on the host into
 dense arrays that feed the device kernels directly:
@@ -79,12 +79,6 @@ class FrameTensors:
     mb_intra: np.ndarray         # uint8[mbH, mbW] (0/1)
     mb_mv: np.ndarray            # int16[mbH, mbW, 2] (vy, vx) half-pel
     mb_rep_add: np.ndarray       # uint8[mbH, mbW] zero-prediction flag
-    # device-ready per-pixel dequant sideband, emitted by the native
-    # parser in its block pass (None from the Python spec parser):
-    #   mult  int16 = quantizer_scale * quant-matrix value
-    #   flags uint8 = bit0 non-intra, bit1 in coded range, bit2 intra DC
-    mult: tuple | None = None
-    flags: tuple | None = None
 
     @property
     def is_intra_picture(self) -> bool:
@@ -142,17 +136,11 @@ class StreamParser:
     pattern immediately after the cbp VLC otherwise; alpha DC uses its
     own per-slice predictor with the luminance DC-size table; alpha
     prediction uses the luma motion vectors at full resolution.
-
-    ``emit_sideband`` makes the native back-end write the per-pixel
-    dequant sideband (``mult``/``flags``) during its block pass; off by
-    default — device-side expansion is cheaper than the extra host
-    memory traffic (PERF.md).
     """
 
     def __init__(self, use_native: bool | None = None,
-                 yuva: bool = False, emit_sideband: bool = False):
+                 yuva: bool = False):
         self.yuva = yuva
-        self.emit_sideband = emit_sideband
         self._native = None
         if use_native is None or use_native:
             from .native import get_native_parser
@@ -269,8 +257,7 @@ class StreamParser:
             data_arr = np.frombuffer(r.data, dtype=np.uint8)
             rel_bit = r.bit_pos - (r.base << 3)
             end_rel = self._native.parse_picture_slices(
-                data_arr, rel_bit, ft, mb_w, mb_h,
-                seq if self.emit_sideband else None)
+                data_arr, rel_bit, ft, mb_w, mb_h)
             r.seek_bits((r.base + end_rel) << 3)
             return ft
 

@@ -1,6 +1,6 @@
 """Sparse byte-range stream buffer with download planning and trimming.
 
-The TPU-framework analog of the reference's linked-list-of-buffers
+The jsvx analog of the reference's linked-list-of-buffers
 BitReader (``features/bitreader.js``): holds possibly-holey byte ranges of
 the stream, answers availability queries (emitting ``stalled`` with the
 missing offset), plans the next range to download against a forward-buffer

@@ -30,7 +30,8 @@ def ycbcr_to_rgb_jax(y: jax.Array, cb: jax.Array, cr: jax.Array,
     ycc = jnp.stack([y.astype(jnp.float32),
                      up(cb).astype(jnp.float32),
                      up(cr).astype(jnp.float32)], axis=-1) / 255.0
-    rgb = ycc @ _M.T + _OFF
+    # HIGHEST: a GPU may otherwise run this f32 product in TF32
+    rgb = jnp.matmul(ycc, _M.T, precision=jax.lax.Precision.HIGHEST) + _OFF
     rgb = jnp.clip(jnp.round(rgb * 255.0), 0, 255).astype(jnp.uint8)
     if alpha is not False and alpha is not None:
         if alpha is True:

@@ -7,14 +7,13 @@ passes (``decoders/shaders/mpeg1video.js``) with math on dense planes:
 
 * no byte-pair int16 emulation, no 0.4 packing scale, no 4-pixels-per-texel
   repacking — those are WebGL1 workarounds, not format semantics;
-* the two 1-D IDCT passes become ``C @ X`` / ``X @ C^T`` contractions that
-  XLA maps onto the MXU, batched over all 8-row / 8-column block strips of
-  the plane at once;
+* the two 1-D IDCT passes become ``C @ X`` / ``X @ C^T`` contractions,
+  batched over all 8-row / 8-column block strips of the plane at once;
 * the per-macroblock motion vectors become a per-pixel gather with
   edge-clamped indices (CLAMP_TO_EDGE semantics, ``decoders/jsv.js:216``).
 
-A Pallas-TPU fused variant lives in :mod:`jsvx.kernels.pallas_decode`; this
-module is the portable reference implementation and the numerical spec.
+This module is the device implementation on every platform and the
+numerical spec.
 """
 
 from __future__ import annotations
@@ -98,12 +97,7 @@ def comp_is_chroma(comp: int) -> bool:
 
 
 def mv_bucket(n: int) -> int:
-    """Static distinct-MV capacity buckets (limits recompilation).
-
-    Top bucket is 255, not 256: the fused kernel's per-pixel ``sel``
-    plane is uint8 with 255 reserved for intra-in-P blocks
-    (``SEL_INTRA``), so a valid MV index never collides with it.
-    """
+    """Static distinct-MV capacity buckets (limits recompilation)."""
     for k in (8, 16, 32, 64, 128, 255):
         if n <= k:
             return k
@@ -130,56 +124,6 @@ def mv_capacity_for(needed: int, sticky: int = 0) -> tuple[int, int]:
         return 0, sticky
     cap = max(sticky, b)
     return cap, cap
-
-
-#: sentinel for "no non-zero MV index in this row" (must exceed any
-#: valid table index; table capacity tops out at 255)
-MV_LO_NONE = 1 << 20
-
-
-def mvset_sort_and_bounds(uniq: np.ndarray, inv: np.ndarray, mb_h: int,
-                          mb_w: int):
-    """Sort non-zero MV-table rows by occurrence centroid row; derive
-    per-MB-row [lo, hi] index bounds.
-
-    The Pallas MC kernels blend one full-width select per table index,
-    so their cost is O(K x pixels) per plane.  Real motion fields are
-    spatially smooth — a vector's support clusters in a few row bands —
-    so after sorting the table by each vector's centroid MB row, the
-    indices PRESENT in any row band form a near-contiguous range.  The
-    kernels then iterate only [lo, hi] of their band (plus index 0, the
-    (0,0) vector, which is handled unconditionally): measured 3-4x MC
-    speedup at 1080p with K~133 (PERF.md round 5).  Correctness does
-    not depend on the ranges being tight — a loose range only blends
-    no-op selects — and index 0 stays (0,0) (skipped MBs, I frames).
-
-    Returns ``(uniq_sorted, inv_new (mb_h, mb_w), lo (mb_h,), hi
-    (mb_h,))``; rows with no non-zero index get ``lo = MV_LO_NONE`` and
-    ``hi = 0`` (an empty range).
-    """
-    n = len(uniq)
-    if n > 2:
-        rows = np.repeat(np.arange(mb_h, dtype=np.float64), mb_w)
-        cnt = np.bincount(inv, minlength=n).astype(np.float64)
-        rowsum = np.bincount(inv, weights=rows, minlength=n)
-        centroid = rowsum / np.maximum(cnt, 1.0)
-        order = 1 + np.argsort(centroid[1:], kind="stable")
-        perm = np.empty(n, np.int64)
-        perm[0] = 0
-        perm[order] = 1 + np.arange(n - 1)
-        uniq = np.concatenate([uniq[:1], uniq[order]])
-        inv = perm[inv]
-    inv2 = inv.reshape(mb_h, mb_w).astype(np.int32)
-    pos = np.where(inv2 > 0, inv2, np.int32(MV_LO_NONE))
-    lo = pos.min(axis=1).astype(np.int32)
-    hi = inv2.max(axis=1).astype(np.int32)
-    return uniq, inv2, lo, hi
-
-
-def rows_to_blocks(arr: np.ndarray, comp: int) -> np.ndarray:
-    """Per-MB-row array -> per-block-row array for plane ``comp``
-    (luma-like planes have 2 block rows per MB row)."""
-    return arr if comp_is_chroma(comp) else np.repeat(arr, 2, axis=-1)
 
 
 def frame_to_device(ft, dtype_levels=np.int16, mv_capacity: int = 0) -> dict:
@@ -217,9 +161,7 @@ def frame_to_device(ft, dtype_levels=np.int16, mv_capacity: int = 0) -> dict:
         if len(uniq) > mv_capacity:
             raise ValueError(
                 f"{len(uniq)} distinct MVs exceed capacity {mv_capacity}")
-        mbh, mbw = ft.mb_mv.shape[:2]
-        uniq, mv_idx, mv_lo, mv_hi = mvset_sort_and_bounds(
-            uniq, inv, mbh, mbw)
+        mv_idx = inv.reshape(ft.mb_mv.shape[:2]).astype(np.int32)
         mv_table = np.zeros((mv_capacity, 2), np.int32)
         mv_table[:len(uniq)] = uniq
         mv_count = np.int32(len(uniq))
@@ -240,11 +182,6 @@ def frame_to_device(ft, dtype_levels=np.int16, mv_capacity: int = 0) -> dict:
         )
         if mv_capacity:
             c["mv_idx"] = mb_to_blocks(mv_idx, comp).astype(np.int16)
-            c["mv_lo"] = rows_to_blocks(mv_lo, comp)
-            c["mv_hi"] = rows_to_blocks(mv_hi, comp)
-        if ft.mult is not None:
-            c["mult"] = ft.mult[comp]
-            c["flags"] = ft.flags[comp]
         out[COMP_KEYS[comp]] = c
     if mv_capacity:
         out["mv_table"] = mv_table
@@ -299,15 +236,22 @@ def dequant_plane(levels: jax.Array, q_blk: jax.Array, intra_blk: jax.Array,
 
 
 # ---------------------------------------------------------------------------
-# IDCT (two MXU contractions over block strips)
+# IDCT (two contractions over block strips)
 
 def idct_plane(d: jax.Array, consts: DecodeConstants) -> jax.Array:
+    """Separable 8x8 IDCT of a dequantised plane (spatial = C F C^T).
+
+    Both contractions pin ``Precision.HIGHEST``: at default precision a
+    GPU may run f32 products in TF32 (about three decimal digits), and
+    the reconstructed planes would stop matching the CPU path.
+    """
     h, w = d.shape
     c = consts.c_basis
+    hi = jax.lax.Precision.HIGHEST
     cols = jnp.einsum("xu,bul->bxl", c, d.reshape(h // 8, 8, w),
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32, precision=hi)
     rows = jnp.einsum("yv,hbv->hby", c, cols.reshape(h, w // 8, 8),
-                      preferred_element_type=jnp.float32)
+                      preferred_element_type=jnp.float32, precision=hi)
     return rows.reshape(h, w)
 
 
@@ -369,14 +313,14 @@ def predict_plane(ref: jax.Array, mv_blk: jax.Array, rep_add_blk: jax.Array,
 def predict_plane_mvset(ref: jax.Array, mv_table: jax.Array,
                         mv_idx_blk: jax.Array, rep_add_blk: jax.Array,
                         is_chroma: bool, pad: int = 72) -> jax.Array:
-    """Fast MC via distinct-motion-vector decomposition.
+    """MC via distinct-motion-vector decomposition.
 
-    XLA's per-pixel gather lowers to a scalar loop on TPU (~60 ms for a
-    1080p plane); but motion vectors are per-macroblock, so a frame has
-    few *distinct* values.  For each entry of ``mv_table`` this takes ONE
-    dynamic slice of the edge-padded reference (a fast contiguous copy)
-    and blends it in where ``mv_idx`` matches — a lax.scan of K
-    vectorised steps instead of 2M scalar gathers.
+    Motion vectors are per macroblock, so a frame has few *distinct*
+    values.  For each entry of ``mv_table`` this takes ONE dynamic slice
+    of the edge-padded reference (a contiguous copy) and blends it in
+    where ``mv_idx`` matches: a lax.scan of K vectorised steps in place
+    of a per-pixel gather.  The CPU backend takes this formulation; a
+    GPU gathers per pixel (see :func:`jsvx.pipeline.gop.decode_backend`).
 
     ``pad`` must be a static bound on full-pel displacement + 1
     (``pad >= 8 * (1 << (f_code - 1)) + 1``); edge-replication padding
@@ -435,26 +379,16 @@ def decode_frame_plane(comp_inputs: dict, ref: jax.Array, is_p: jax.Array,
 
     ``mc_impl`` selects the prediction formulation:
 
-    * ``"pallas"`` — distinct-MV slices inside a Pallas kernel (fastest;
-      the K-way traffic stays in VMEM);
-    * ``"mvset"``  — distinct-MV dynamic slices in XLA (exact incl. edge
-      clamps; needs ``mv_table``/``mv_idx`` from ``frame_to_device``);
-    * ``"gather"`` — per-pixel gather (exact, slow on TPU; supports
-      sharded halo decoding).
+    * ``"mvset"``  — distinct-MV dynamic slices (exact incl. edge clamps;
+      needs ``mv_table``/``mv_idx`` from ``frame_to_device``);
+    * ``"gather"`` — per-pixel gather (exact; supports sharded halo
+      decoding).
     """
     d = dequant_plane(comp_inputs["levels"], comp_inputs["q"],
                       comp_inputs["intra"], comp_inputs["lnz"], consts,
                       quirk_oddify_zeros)
     res = idct_plane(d, consts)
-    if mc_impl == "pallas":
-        from .pallas_mc import predict_plane_mvset_pallas
-
-        pred = predict_plane_mvset_pallas(
-            ref, mv_table, comp_inputs["mv_idx"], comp_inputs["rep_add"],
-            is_chroma, pad=mv_pad,
-            lo_rows=comp_inputs.get("mv_lo"),
-            hi_rows=comp_inputs.get("mv_hi"))
-    elif mc_impl == "mvset":
+    if mc_impl == "mvset":
         pred = predict_plane_mvset(ref, mv_table, comp_inputs["mv_idx"],
                                    comp_inputs["rep_add"], is_chroma,
                                    pad=mv_pad)
@@ -473,7 +407,7 @@ def decode_frame_planes(frame: dict, refs: tuple, consts: DecodeConstants,
     """All planes of one picture; ``refs`` = (Y, Cb, Cr[, A]) uint8."""
     is_p = frame["is_p"]
     mv_table = frame.get("mv_table")
-    if mc_impl in ("mvset", "pallas") and (
+    if mc_impl == "mvset" and (
             mv_table is None or "mv_idx" not in frame["y"]):
         mc_impl = "gather"
     kw = dict(quirk_oddify_zeros=quirk_oddify_zeros, mv_table=mv_table,

@@ -1,9 +1,7 @@
 """Device-side expansion of the compact coefficient wire format.
 
-The round-2 pipeline shipped dense int16 coefficient planes to the
-device (~6.3 MB per 1080p frame) even though the encoded stream itself
-is ~14x smaller — on bandwidth-limited host->device links the transfer,
-not the decode, bounded end-to-end throughput.  The compact wire format
+Dense int16 coefficient planes are ~6.3 MB per 1080p frame, while the
+encoded stream itself is ~14x smaller.  The compact wire format
 (produced by ``jsv_parse_picture_slices_compact`` in
 ``jsvx/native/jsv_parse.cc``) ships only the *coded* coefficients:
 
@@ -21,19 +19,18 @@ not the decode, bounded end-to-end throughput.  The compact wire format
 This module reconstitutes, inside the decode jit, exactly the dense
 per-component tensors the kernels consume.  Entry->block assignment
 uses a scatter-add + cumsum rank over the (sorted) per-block boundary
-positions — NOT ``searchsorted``, whose binary-search gather lowered to
-~20 serial gather passes over every entry on TPU and dominated the
-whole expansion (~0.4 s/GOP at 1080p measured with forced sync; the
-rank formulation plus the parser-side zig-zag undo brings it to the
-raw-scatter cost).  A single scatter then builds the coefficient plane
-stack.  Expanded planes are *exact* (true zeros everywhere uncoded), so
-the last-non-zero masking the dense path needs for its pooled buffers
-(jsvx/pipeline/packed_parse.py zeroing invariant) degenerates to a
+positions rather than ``searchsorted``, whose binary search is a chain of
+dependent gathers over every entry; with the parser-side zig-zag undo the
+expansion costs one scatter.  A single scatter then builds the
+coefficient plane stack.  Expanded planes are *exact* (true zeros
+everywhere uncoded), so the last-non-zero masking the dense path needs
+for its pooled buffers (jsvx/pipeline/packed_parse.py zeroing
+invariant) degenerates to a
 constant full-scan mask here — outputs are bit-identical.
 
 The reference uploads dense coefficient textures every picture
-(``decoders/jsv.js:1206-1243``); this wire format is the TPU-native
-improvement on it, not a translation.
+(``decoders/jsv.js:1206-1243``); this wire format is an improvement on
+it, not a translation.
 """
 
 from __future__ import annotations
@@ -132,15 +129,5 @@ def expand_compact_gop(stacked: dict, mb_h: int, mb_w: int) -> dict:
         )
         if "mv_idx" in mb:
             comp["mv_idx"] = up(mb["mv_idx"], rep)
-        if "mv_lo" in mb:
-            # per-MB-row MC index bounds -> per-block-row (1-D per frame)
-            def up_rows(a):
-                if rep == 1:
-                    return a
-                return jnp.broadcast_to(
-                    a[:, :, None], (n, mb_h, rep)).reshape(n, mb_h * rep)
-
-            comp["mv_lo"] = up_rows(mb["mv_lo"])
-            comp["mv_hi"] = up_rows(mb["mv_hi"])
         out[key] = comp
     return out

@@ -1,7 +1,7 @@
 // jsvx native bitstream front-end: slice/macroblock/block VLC parsing.
 //
 // The serial Huffman walk is the one stage of JSV decode that cannot run on
-// the TPU (SURVEY.md section 7 "hard parts"); the reference runs it in
+// the accelerator (SURVEY.md section 7 "hard parts"); the reference runs it in
 // JavaScript (decoders/jsv.js:683-1525).  This is the optimized host
 // implementation: LUT-driven multi-bit decode into caller-provided dense
 // planes, one call per picture.  The Python parser in
@@ -207,7 +207,6 @@ struct Parser {
   Lut addr, type_i, type_p, cbp, motion, dc_lum, dc_chrom, coeff;
   CoeffTab coeff2;
   uint8_t zigzag[64];
-  uint8_t zigzag_inv[64];   // spatial position -> scan index
 };
 
 struct SliceState {
@@ -229,13 +228,6 @@ struct PictureOut {
   uint8_t* mb_intra;
   int16_t* mb_mv;     // (mbH, mbW, 2) = (vy, vx)
   uint8_t* mb_rep_add;
-  // optional device-ready per-pixel dequant sideband (may be null):
-  //   mult  = quantizer_scale * quant_matrix value at this position
-  //   flags = bit0 non-intra, bit1 inside coded scan range, bit2 intra DC
-  int16_t* mult[4] = {nullptr, nullptr, nullptr, nullptr};
-  uint8_t* flags[4] = {nullptr, nullptr, nullptr, nullptr};
-  const uint8_t* intra_q = nullptr;      // 64, spatial order
-  const uint8_t* non_intra_q = nullptr;
 };
 
 struct PictureCtx {
@@ -277,26 +269,7 @@ struct DenseEmit {
     uint32_t zz = p->zigzag[n];
     dst[(zz >> 3) * stride + (zz & 7)] = (int16_t)level;
   }
-  inline void end(int n, bool intra, const SliceState& s) {
-    if (o->mult[comp] != nullptr) {
-      // emit the per-pixel dequant sideband in the same pass
-      const uint8_t* m = intra ? o->intra_q : o->non_intra_q;
-      const int32_t q = s.quantizer_scale;
-      int16_t* md = o->mult[comp] + (int64_t)by * 8 * stride + bx * 8;
-      uint8_t* fd = o->flags[comp] + (int64_t)by * 8 * stride + bx * 8;
-      for (int i = 0; i < 8; ++i) {
-        for (int j = 0; j < 8; ++j) {
-          int pos = i * 8 + j;
-          md[j] = (int16_t)(q * m[pos]);
-          uint8_t f = intra ? 0 : 1;
-          if (p->zigzag_inv[pos] < n) f |= 2;
-          if (pos == 0 && intra) f |= 4;
-          fd[j] = f;
-        }
-        md += stride;
-        fd += stride;
-      }
-    }
+  inline void end(int n, bool, const SliceState&) {
     uint8_t lnz = (uint8_t)(n > 255 ? 255 : n);
     int lnz_stride = (comp == 0 || comp == 3) ? c->mb_w * 2 : c->mb_w;
     o->lnz[comp][(int64_t)by * lnz_stride + bx] = lnz;
@@ -745,7 +718,6 @@ void* jsv_parser_new(
   p->coeff.set(coef_v, coef_l, coef_b);
   p->coeff2.build(coef_v, coef_l, coef_b);
   std::memcpy(p->zigzag, zigzag, 64);
-  for (int i = 0; i < 64; ++i) p->zigzag_inv[zigzag[i]] = (uint8_t)i;
   return p;
 }
 
@@ -764,11 +736,6 @@ int64_t jsv_parse_picture_slices(
     uint8_t* lnz_y, uint8_t* lnz_cb, uint8_t* lnz_cr, uint8_t* lnz_a,
     uint8_t* mb_quant, uint8_t* mb_intra, int16_t* mb_mv,
     uint8_t* mb_rep_add,
-    // optional (may all be null): per-pixel dequant sideband emission
-    const uint8_t* intra_q, const uint8_t* non_intra_q,
-    int16_t* mult_y, int16_t* mult_cb, int16_t* mult_cr, int16_t* mult_a,
-    uint8_t* flags_y, uint8_t* flags_cb, uint8_t* flags_cr,
-    uint8_t* flags_a,
     // slice-level fan-out (1 = serial; safe: slices write disjoint rows)
     int32_t n_threads) {
   Parser& p = *(Parser*)handle;
@@ -779,14 +746,6 @@ int64_t jsv_parse_picture_slices(
   o.lnz[0] = lnz_y; o.lnz[1] = lnz_cb; o.lnz[2] = lnz_cr; o.lnz[3] = lnz_a;
   o.mb_quant = mb_quant; o.mb_intra = mb_intra;
   o.mb_mv = mb_mv; o.mb_rep_add = mb_rep_add;
-  if (mult_y != nullptr && intra_q != nullptr) {
-    o.mult[0] = mult_y; o.mult[1] = mult_cb; o.mult[2] = mult_cr;
-    o.mult[3] = mult_a;
-    o.flags[0] = flags_y; o.flags[1] = flags_cb; o.flags[2] = flags_cr;
-    o.flags[3] = flags_a;
-    o.intra_q = intra_q;
-    o.non_intra_q = non_intra_q;
-  }
 
   int64_t picture_end;
   std::vector<Span> spans = collect_spans(data, n_bytes, start_bit,

@@ -121,30 +121,27 @@ def _mv_unique(mb_mv: np.ndarray):
     return uniq, inv
 
 
-def _mvset_for_frames(fts, mv_capacity: int, mb_h: int, mb_w: int,
-                      uniqs: list | None = None):
-    """Per-frame distinct-MV tables/counts, per-MB index grids, and
-    per-MB-row [lo, hi] index bounds (tables centroid-row-sorted so the
-    bounds are tight — see ``mvset_sort_and_bounds``)."""
-    from ..kernels.decode import mvset_sort_and_bounds
+def mvset_tables(mb_mvs, mv_capacity: int, uniqs: list | None = None):
+    """Distinct-MV decomposition of a GOP's per-MB vector fields.
 
-    n = len(fts)
+    Returns ``(tables (n, K, 2) int32, counts (n,) int32, mv_idx (n,
+    mb_h, mb_w) int16)``: per frame the unique vectors with (0, 0) at
+    row 0 (:func:`_mv_unique`) and each macroblock's row index."""
+    n = len(mb_mvs)
+    mb_h, mb_w = mb_mvs[0].shape[:2]
     tables = np.zeros((n, mv_capacity, 2), np.int32)
     counts = np.zeros((n,), np.int32)
-    mv_idx = np.zeros((n, mb_h, mb_w), np.int32)
-    lo = np.zeros((n, mb_h), np.int32)
-    hi = np.zeros((n, mb_h), np.int32)
-    for i, ft in enumerate(fts):
+    mv_idx = np.zeros((n, mb_h, mb_w), np.int16)
+    for i, mb_mv in enumerate(mb_mvs):
         uniq, inv = (uniqs[i] if uniqs is not None
-                     else _mv_unique(ft.mb_mv))
+                     else _mv_unique(mb_mv))
         if len(uniq) > mv_capacity:
             raise ValueError(
                 f"{len(uniq)} distinct MVs exceed {mv_capacity}")
-        uniq, mv_idx[i], lo[i], hi[i] = mvset_sort_and_bounds(
-            uniq, inv, mb_h, mb_w)
         tables[i, :len(uniq)] = uniq
         counts[i] = len(uniq)
-    return tables, counts, mv_idx, lo, hi
+        mv_idx[i] = inv.reshape(mb_h, mb_w)
+    return tables, counts, mv_idx
 
 
 def walk_stream(data: bytes):
@@ -234,7 +231,7 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
     def run(job):
         ft, start_bit = job
         native.parse_picture_slices(arr, start_bit, ft, mb_w, mb_h,
-                                    None, n_threads=slice_threads)
+                                    n_threads=slice_threads)
 
     if n_threads == 1 or len(jobs) == 1:
         for job in jobs:
@@ -253,8 +250,8 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
     )
     mv_idx = None
     if mv_capacity:
-        tables, counts, mv_idx, mv_lo, mv_hi = _mvset_for_frames(
-            fts, mv_capacity, mb_h, mb_w)
+        tables, counts, mv_idx = mvset_tables(
+            [ft.mb_mv for ft in fts], mv_capacity)
         out["mv_table"] = tables
         out["mv_count"] = counts
     for c in range(n_comps):
@@ -269,12 +266,7 @@ def parse_gop_packed(arr: np.ndarray, group: list, seq, meta,
             rep_add=np.ascontiguousarray(_mb_to_blocks(mb_rep_add, c)),
         )
         if mv_idx is not None:
-            from ..kernels.decode import rows_to_blocks
-
-            comp["mv_idx"] = np.ascontiguousarray(
-                _mb_to_blocks(mv_idx, c).astype(np.int16))
-            comp["mv_lo"] = rows_to_blocks(mv_lo, c)
-            comp["mv_hi"] = rows_to_blocks(mv_hi, c)
+            comp["mv_idx"] = np.ascontiguousarray(_mb_to_blocks(mv_idx, c))
         out[COMP_KEYS[c]] = comp
     return PackedGop(stacked=out, fts=fts, index=index, pooled=levels)
 
@@ -322,8 +314,8 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
     ``buckets`` maps component key -> sticky entry-capacity bucket; it is
     grown in place so successive GOPs keep stable shapes (one compiled
     expansion+decode program per bucket set).  ``mv_capacity`` as in
-    :func:`parse_gop_packed` (the distinct-MV table is required by the
-    fused kernels; 0 defers it to the caller via ``attach_mvset`` logic).
+    :func:`parse_gop_packed`; 0 leaves it to the caller
+    (:func:`attach_mvset_compact`).
     """
     native = get_native_parser()
     if native is None:
@@ -374,20 +366,7 @@ def parse_gop_compact(arr: np.ndarray, group: list, seq, meta,
     )
     mb = dict(q=mb_quant, intra=mb_intra, rep_add=mb_rep_add, mv=mb_mv)
     if mv_capacity:
-        tables = np.zeros((n, mv_capacity, 2), np.int32)
-        mv_counts = np.zeros((n,), np.int32)
-        mv_idx = np.zeros((n, mb_h, mb_w), np.int16)
-        for i in range(n):
-            uniq, inv = _mv_unique(mb_mv[i])
-            if len(uniq) > mv_capacity:
-                raise ValueError(
-                    f"{len(uniq)} distinct MVs exceed {mv_capacity}")
-            tables[i, :len(uniq)] = uniq
-            mv_counts[i] = len(uniq)
-            mv_idx[i] = inv.reshape(mb_h, mb_w).astype(np.int16)
-        out["mv_table"] = tables
-        out["mv_count"] = mv_counts
-        mb["mv_idx"] = mv_idx
+        attach_mvset_compact(out, mb, mv_capacity)
     out["mb"] = mb
 
     coef = {}
@@ -429,17 +408,23 @@ def _tree_leaves(tree):
 def attach_mvset(g: PackedGop, mv_capacity: int, seq, meta,
                  uniqs: list | None = None) -> None:
     """Add the distinct-MV sideband to a GOP parsed with capacity 0."""
-    from ..kernels.decode import rows_to_blocks
-
-    tables, counts, mv_idx, mv_lo, mv_hi = _mvset_for_frames(
-        g.fts, mv_capacity, seq.mb_height, seq.mb_width, uniqs=uniqs)
+    tables, counts, mv_idx = mvset_tables(
+        [ft.mb_mv for ft in g.fts], mv_capacity, uniqs=uniqs)
     g.stacked["mv_table"] = tables
     g.stacked["mv_count"] = counts
     for c in range(meta.n_components):
         g.stacked[COMP_KEYS[c]]["mv_idx"] = np.ascontiguousarray(
-            _mb_to_blocks(mv_idx, c).astype(np.int16))
-        g.stacked[COMP_KEYS[c]]["mv_lo"] = rows_to_blocks(mv_lo, c)
-        g.stacked[COMP_KEYS[c]]["mv_hi"] = rows_to_blocks(mv_hi, c)
+            _mb_to_blocks(mv_idx, c))
+
+
+def attach_mvset_compact(stacked: dict, mb: dict, mv_capacity: int,
+                         uniqs: list | None = None) -> None:
+    """Add the distinct-MV sideband to a compact-wire GOP pytree (its
+    per-MB sideband dict ``mb`` carries the index grid)."""
+    tables, counts, mb["mv_idx"] = mvset_tables(
+        list(mb["mv"]), mv_capacity, uniqs=uniqs)
+    stacked["mv_table"] = tables
+    stacked["mv_count"] = counts
 
 
 def gop_mv_capacity(fts) -> int:
@@ -474,17 +459,7 @@ def parse_stream_packed(data: bytes, n_threads: int | None = None,
         mv_capacity = mv_bucket(max(
             (gop_mv_capacity(g.fts) for g in gops), default=1))
     if mv_capacity:
-        from ..kernels.decode import rows_to_blocks
-
-        mb_h, mb_w = seq.mb_height, seq.mb_width
         for g in gops:
-            tables, counts, mv_idx, mv_lo, mv_hi = _mvset_for_frames(
-                g.fts, mv_capacity, mb_h, mb_w)
-            g.stacked["mv_table"] = tables
-            g.stacked["mv_count"] = counts
-            for c in range(meta.n_components):
-                g.stacked[COMP_KEYS[c]]["mv_idx"] = _mb_to_blocks(mv_idx, c)
-                g.stacked[COMP_KEYS[c]]["mv_lo"] = rows_to_blocks(mv_lo, c)
-                g.stacked[COMP_KEYS[c]]["mv_hi"] = rows_to_blocks(mv_hi, c)
+            attach_mvset(g, mv_capacity, seq, meta)
     return PackedStream(meta=meta, seq=seq, gops=gops,
                         mv_capacity=mv_capacity)

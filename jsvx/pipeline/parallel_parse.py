@@ -1,6 +1,6 @@
 """Parallel host parsing: pictures across a thread pool.
 
-The serial VLC front-end is the one stage that cannot run on the TPU
+The serial VLC front-end is the one stage that cannot run on the device
 (SURVEY.md section 7, hard part #1).  But pictures are independently
 parseable once the sequence state (quant matrices, f_code in the picture
 header) is known: slice predictors reset per slice, and nothing in the
@@ -84,7 +84,7 @@ def parse_stream_parallel(data: bytes, n_threads: int | None = None,
         def run(job):
             ft, start_bit, seq = job
             native.parse_picture_slices(arr, start_bit, ft,
-                                        seq.mb_width, seq.mb_height, seq)
+                                        seq.mb_width, seq.mb_height)
 
         with ThreadPoolExecutor(max_workers=n_threads) as pool:
             list(pool.map(run, jobs))

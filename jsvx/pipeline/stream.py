@@ -2,7 +2,7 @@
 
 Host parse (serial VLC front-end) feeding the jitted device step, with the
 parse of picture n+1 overlapped against device compute of picture n — the
-TPU analog of the reference's decode-ahead pipeline
+batch analog of the reference's decode-ahead pipeline
 (``player/easybits.player.js:2451-2505``): JAX dispatch is async, so the
 host keeps parsing while the device works; ``jax.block_until_ready`` only
 happens at the sink.
@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import jax
 import numpy as np
 
 from ..bitstream.bitio import BitReader
@@ -20,8 +19,9 @@ from ..bitstream.container import StartCodeIndex, parse_container_header
 from ..bitstream.parser import StreamParser
 from ..coding import tables as T
 from ..kernels.decode import (decode_frame_jit, frame_to_device,
-                              make_constants)
-from .gop import decode_gop_scan, stack_device_frames, zero_refs
+                              make_constants, mv_bucket)
+from .gop import (decode_backend, decode_gop_scan, stack_device_frames,
+                  zero_refs)
 
 
 @dataclass
@@ -62,16 +62,9 @@ class JaxStreamDecoder:
                 if ft is not None:
                     out.append(ft)
 
-    def decode(self, use_gop_scan: bool = True,
-               impl: str | None = None) -> StreamResult:
-        """``impl``: "pallas" (TPU fused kernels), "xla", or None = auto
-        (pallas on TPU platforms, xla elsewhere)."""
-        import jax as _jax
-
-        if impl is None:
-            from .gop import default_impl
-
-            impl = default_impl()
+    def decode(self, use_gop_scan: bool = True) -> StreamResult:
+        """Decode every picture on the device chosen by
+        :func:`jsvx.pipeline.gop.decode_backend`."""
         fts = self.parse_all()
         seq = self.parser.seq
         consts = make_constants(seq)
@@ -79,18 +72,17 @@ class JaxStreamDecoder:
                          n_comps=self.meta.n_components)
         frames = []
 
-        def capacity_for(group):
-            from ..kernels.decode import mv_bucket
-
-            n = 1
-            for ft in group:
-                n = max(n, len(np.unique(
-                    ft.mb_mv.reshape(-1, 2), axis=0)) + 1)
-            return mv_bucket(n)
-
         # one capacity bucket for the whole stream keeps shapes stable
-        # (each new bucket costs a fresh compile)
-        stream_cap = capacity_for(fts)
+        # (each new bucket costs a fresh compile); only the mvset
+        # formulation reads the distinct-MV table
+        mc_impl = decode_backend()
+        cap = 0
+        if mc_impl == "mvset":
+            cap = mv_bucket(max([1] + [
+                len(np.unique(ft.mb_mv.reshape(-1, 2), axis=0)) + 1
+                for ft in fts]))
+        if not cap:
+            mc_impl = "gather"
 
         if use_gop_scan:
             # split into GOPs at I pictures, scan each
@@ -103,20 +95,17 @@ class JaxStreamDecoder:
             if cur:
                 gops.append(cur)
             for gop in gops:
-                cap = stream_cap
                 stacked = stack_device_frames(
                     [frame_to_device(ft, mv_capacity=cap) for ft in gop])
                 outs, refs = decode_gop_scan(
-                    stacked, refs, consts, self.quirk,
-                    mc_impl="mvset" if cap else "gather", impl=impl)
+                    stacked, refs, consts, self.quirk, mc_impl=mc_impl)
                 for i in range(len(gop)):
                     frames.append(tuple(p[i] for p in outs))
         else:
             for ft in fts:
-                cap = stream_cap
                 planes = decode_frame_jit(
                     frame_to_device(ft, mv_capacity=cap), refs, consts,
-                    self.quirk, mc_impl="mvset" if cap else "gather")
+                    self.quirk, mc_impl=mc_impl)
                 refs = planes
                 frames.append(planes)
         return StreamResult(frames=frames,

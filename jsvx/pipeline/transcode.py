@@ -2,15 +2,14 @@
 
 The production-serving shape of the framework: a complete (or assigned
 slice of a) stream is parsed with picture-level thread parallelism,
-decoded GOP-by-GOP on the device with the fused kernels, and delivered to
-a sink, with GOP-granular checkpoint/resume via
+decoded GOP-by-GOP on the device (:func:`jsvx.pipeline.gop.decode_backend`
+picks the kernels), and delivered to a sink, with GOP-granular checkpoint/resume via
 :class:`jsvx.runtime.multihost.GopManifest` and stage metrics from
 :mod:`jsvx.runtime.profiler`.
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -18,7 +17,7 @@ import numpy as np
 from ..kernels.decode import frame_to_device, make_constants, mv_bucket
 from ..runtime.multihost import GopManifest
 from ..runtime.profiler import Metrics
-from .gop import decode_gop_scan, zero_refs
+from .gop import decode_backend, decode_gop_scan, zero_refs
 from .parallel_parse import parse_stream_parallel
 
 
@@ -31,53 +30,34 @@ class TranscodeResult:
     height: int
 
 
-def transcode(data: bytes, sink=None, *, impl: str | None = None,
+def transcode(data: bytes, sink=None, *,
               manifest: GopManifest | None = None,
               process_id: int = 0, process_count: int = 1,
               n_parse_threads: int | None = None,
               quirk_oddify_zeros: bool = False,
-              metrics: Metrics | None = None,
-              probe_expand: bool = False) -> TranscodeResult:
+              metrics: Metrics | None = None) -> TranscodeResult:
     """Decode every (assigned, pending) GOP of ``data``.
 
     ``sink(gop_index, frames)`` receives each GOP's decoded (Y, Cb, Cr)
     stacks (device arrays).  With a ``manifest``, completed GOPs are
     journaled and skipped on resume; with ``process_count > 1`` only this
     process's round-robin share is decoded (multi-host operation).
-
-    ``probe_expand=True`` additionally compiles a standalone
-    unflatten+expand program and times it on the last GOP's wire after
-    the decode loop, surfacing the on-device expansion cost of the
-    compact wire as ``metrics.gauges["expand_probe_s_per_gop"]`` — the
-    expand and decode stages run fused inside one program in
-    production, so this probe is how the ``device_wait`` stage splits
-    into expand vs decode in any run's artifact (VERDICT r4 #8).
     """
-    import jax
-
     from ..bitstream.native import get_native_parser
 
     metrics = metrics or Metrics()
-    if impl is None:
-        from .gop import default_impl
-
-        impl = default_impl()
+    mc_impl = decode_backend()
 
     if get_native_parser() is not None:
         # the compact wire format cannot express the oddify-zeros quirk
         # (it oddifies positions the compact wire elides by design)
-        if quirk_oddify_zeros:
-            return _transcode_packed(
-                data, sink, impl=impl, manifest=manifest,
-                process_id=process_id, process_count=process_count,
-                n_parse_threads=n_parse_threads,
-                quirk_oddify_zeros=quirk_oddify_zeros, metrics=metrics)
-        return _transcode_compact(
-            data, sink, impl=impl, manifest=manifest,
-            process_id=process_id, process_count=process_count,
-            n_parse_threads=n_parse_threads,
-            quirk_oddify_zeros=quirk_oddify_zeros, metrics=metrics,
-            probe_expand=probe_expand)
+        run = _transcode_packed if quirk_oddify_zeros else _transcode_compact
+        return run(data, sink, mc_impl=mc_impl, manifest=manifest,
+                   process_id=process_id, process_count=process_count,
+                   n_parse_threads=n_parse_threads,
+                   quirk_oddify_zeros=quirk_oddify_zeros, metrics=metrics)
+
+    import jax
 
     with metrics.timers.stage("parse"):
         parsed = parse_stream_parallel(data, n_threads=n_parse_threads)
@@ -92,11 +72,13 @@ def transcode(data: bytes, sink=None, *, impl: str | None = None,
     fgroups = [g for g in fgroups if g]
     # one distinct-MV capacity bucket for the whole stream: stable
     # shapes -> one compiled executable for every GOP
-    cap = 1
-    for ft in parsed.frames:
-        cap = max(cap, len(np.unique(
-            ft.mb_mv.reshape(-1, 2), axis=0)) + 1)
-    cap = mv_bucket(cap)
+    cap = 0
+    if mc_impl == "mvset":
+        cap = mv_bucket(max([1] + [
+            len(np.unique(ft.mb_mv.reshape(-1, 2), axis=0)) + 1
+            for ft in parsed.frames]))
+    if not cap:
+        mc_impl = "gather"
     groups = []
     for g in fgroups:
         with metrics.timers.stage("pack"):
@@ -120,7 +102,7 @@ def transcode(data: bytes, sink=None, *, impl: str | None = None,
                              n_comps=meta.n_components)
             outs, _ = decode_gop_scan(
                 stacked, refs, consts, quirk_oddify_zeros,
-                mc_impl="mvset" if cap else "gather", impl=impl)
+                mc_impl=mc_impl)
             jax.block_until_ready(outs)
         if sink is not None:
             with metrics.timers.stage("sink"):
@@ -138,12 +120,25 @@ def transcode(data: bytes, sink=None, *, impl: str | None = None,
                            height=meta.height)
 
 
-def _transcode_compact(data: bytes, sink, *, impl: str,
+def _mv_plan(mc_impl: str, uniqs: list, sticky: int) -> tuple:
+    """``(gop_capacity, new_sticky, gop_mc_impl)``: the distinct-MV
+    table is built only for the mvset formulation, with a sticky
+    grow-only bucket (few recompiles); a GOP that overflows every bucket
+    decodes with the exact gather MC."""
+    from ..kernels.decode import mv_capacity_for
+
+    if mc_impl != "mvset":
+        return 0, sticky, mc_impl
+    gcap, sticky = mv_capacity_for(
+        max((len(u[0]) + 1 for u in uniqs), default=1), sticky)
+    return gcap, sticky, ("mvset" if gcap else "gather")
+
+
+def _transcode_compact(data: bytes, sink, *, mc_impl: str,
                        manifest: GopManifest | None, process_id: int,
                        process_count: int, n_parse_threads: int | None,
                        quirk_oddify_zeros: bool,
-                       metrics: Metrics,
-                       probe_expand: bool = False) -> TranscodeResult:
+                       metrics: Metrics) -> TranscodeResult:
     """Fastest path: compact coefficient wire (host->device bytes scale
     with *coded* content, not plane area — see :mod:`jsvx.kernels.expand`)
     + parse(g+1) pipelined against device decode(g).  GOPs whose streams
@@ -153,10 +148,10 @@ def _transcode_compact(data: bytes, sink, *, impl: str,
     import jax
 
     from .gop import decode_gop_scan_wire
-    from .packed_parse import (BufferPool, attach_mvset, parse_gop_compact,
+    from .packed_parse import (BufferPool, attach_mvset,
+                               attach_mvset_compact, parse_gop_compact,
                                parse_gop_packed, walk_stream, _mv_unique)
     from .wire import flatten_wire, wire_spec
-    from ..kernels.decode import mv_capacity_for
 
     assert not quirk_oddify_zeros
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
@@ -186,56 +181,32 @@ def _transcode_compact(data: bytes, sink, *, impl: str,
                 g = parse_gop_packed(arr, groups[gi], seq, meta, 0,
                                      pool=pool, n_threads=n_parse_threads,
                                      index=gi)
-                uniqs = [_mv_unique(ft.mb_mv) for ft in g.fts]
-                gcap, cap = mv_capacity_for(
-                    max((len(u[0]) + 1 for u in uniqs), default=1), cap)
+                uniqs = ([_mv_unique(ft.mb_mv) for ft in g.fts]
+                         if mc_impl == "mvset" else [])
+                gcap, cap, g.mc_impl = _mv_plan(mc_impl, uniqs, cap)
                 if gcap:
                     attach_mvset(g, gcap, seq, meta, uniqs=uniqs)
+                # dense fallback; async upload overlaps the next parse
+                g.device_stacked = jax.device_put(g.stacked)
             else:
-                mb_mv = g.stacked["mb"]["mv"]
-                n, mbh, mbw = mb_mv.shape[:3]
-                uniqs = [_mv_unique(mb_mv[i]) for i in range(n)]
-                gcap, cap = mv_capacity_for(
-                    max((len(u[0]) + 1 for u in uniqs), default=1), cap)
+                mb = g.stacked["mb"]
+                uniqs = ([_mv_unique(m) for m in mb["mv"]]
+                         if mc_impl == "mvset" else [])
+                gcap, cap, g.mc_impl = _mv_plan(mc_impl, uniqs, cap)
                 if gcap:
-                    from ..kernels.decode import mvset_sort_and_bounds
-
-                    tables = np.zeros((n, gcap, 2), np.int32)
-                    mv_counts = np.zeros((n,), np.int32)
-                    mv_idx = np.zeros(mb_mv.shape[:3], np.int16)
-                    mv_lo = np.zeros((n, mbh), np.int32)
-                    mv_hi = np.zeros((n, mbh), np.int32)
-                    for i, (uniq, inv) in enumerate(uniqs):
-                        uniq, idx2, mv_lo[i], mv_hi[i] = \
-                            mvset_sort_and_bounds(uniq, inv, mbh, mbw)
-                        tables[i, :len(uniq)] = uniq
-                        mv_counts[i] = len(uniq)
-                        mv_idx[i] = idx2.astype(np.int16)
-                    g.stacked["mv_table"] = tables
-                    g.stacked["mv_count"] = mv_counts
-                    g.stacked["mb"]["mv_idx"] = mv_idx
-                    g.stacked["mb"]["mv_lo"] = mv_lo
-                    g.stacked["mb"]["mv_hi"] = mv_hi
+                    attach_mvset_compact(g.stacked, mb, gcap, uniqs=uniqs)
                 # ONE contiguous buffer -> ONE host->device transfer per
-                # GOP (vs one per pytree leaf): on high-latency links the
-                # per-leaf round trips, not bandwidth, bound throughput
+                # GOP (vs one per pytree leaf)
                 g.wire_spec = wire_spec(g.stacked)
                 buf = pool.acquire((g.wire_spec[1],), np.uint8)
                 flatten_wire(g.stacked, g.wire_spec, out=buf)
                 g.pooled.append(buf)
                 g.device_wire = jax.device_put(buf)
                 wire_total += buf.nbytes
-            # decided at parse time: the global sticky cap may grow
-            # before this GOP is dispatched
-            g.mc_impl = "mvset" if gcap else "gather"
-            if not hasattr(g, "device_wire"):
-                # dense fallback; async upload overlaps the next parse
-                g.device_stacked = jax.device_put(g.stacked)
         return g
 
     pool = BufferPool()
     n_frames = 0
-    last_wire = None
 
     def flush(pending):
         """Complete + deliver a dispatched GOP (runs one GOP behind the
@@ -264,9 +235,8 @@ def _transcode_compact(data: bytes, sink, *, impl: str,
         g = nxt
         compact = hasattr(g, "device_wire")
         if compact:
-            last_wire = (g.device_wire, g.wire_spec)
-            # transfer attribution (VERDICT r3 item 3): the wire upload
-            # was dispatched asynchronously during parse; whatever is
+            # the wire upload was dispatched asynchronously during
+            # parse; whatever is
             # left of it here is the un-overlapped transfer tail,
             # separated from the expand+decode time in device_wait
             with metrics.timers.stage("wire_wait"):
@@ -290,43 +260,17 @@ def _transcode_compact(data: bytes, sink, *, impl: str,
                 outs, _ = decode_gop_scan_wire(
                     g.device_wire, g.wire_spec, refs, consts,
                     seq.mb_height, seq.mb_width,
-                    mc_impl=g.mc_impl, impl=impl)
+                    mc_impl=g.mc_impl)
             else:
                 outs, _ = decode_gop_scan(
                     g.device_stacked, refs, consts, False,
-                    mc_impl=g.mc_impl, impl=impl)
+                    mc_impl=g.mc_impl)
         nxt = parse_one(todo[i + 1], pool) if i + 1 < len(todo) else None
         if pending is not None:
             flush(pending)
         pending = (gi, g, outs, compact)
     if pending is not None:
         flush(pending)
-
-    if probe_expand and last_wire is not None:
-        import time as _time
-
-        import jax.numpy as jnp
-
-        from ..kernels.expand import expand_compact_gop
-        from .wire import unflatten_wire
-
-        wire_dev, spec = last_wire
-
-        @functools.partial(jax.jit, static_argnames=("spec",))
-        def _expand_chk(buf, spec):
-            dense = expand_compact_gop(unflatten_wire(buf, spec),
-                                       seq.mb_height, seq.mb_width)
-            return sum(jnp.sum(dense[k]["levels"].astype(jnp.int32))
-                       for k in ("y", "cb", "cr") if k in dense)
-
-        with metrics.timers.stage("expand_probe_compile"):
-            np.asarray(_expand_chk(wire_dev, spec))      # compile + run
-        best = float("inf")
-        for _ in range(3):
-            t0 = _time.perf_counter()
-            np.asarray(_expand_chk(wire_dev, spec))      # forced fetch
-            best = min(best, _time.perf_counter() - t0)
-        metrics.gauge("expand_probe_s_per_gop", round(best, 4))
 
     metrics.gauge("width", meta.width)
     metrics.gauge("height", meta.height)
@@ -336,7 +280,7 @@ def _transcode_compact(data: bytes, sink, *, impl: str,
                            height=meta.height)
 
 
-def _transcode_packed(data: bytes, sink, *, impl: str,
+def _transcode_packed(data: bytes, sink, *, mc_impl: str,
                       manifest: GopManifest | None, process_id: int,
                       process_count: int, n_parse_threads: int | None,
                       quirk_oddify_zeros: bool,
@@ -349,8 +293,8 @@ def _transcode_packed(data: bytes, sink, *, impl: str,
     """
     import jax
 
-    from .packed_parse import (BufferPool, attach_mvset, gop_mv_capacity,
-                               parse_gop_packed, walk_stream)
+    from .packed_parse import (BufferPool, attach_mvset, parse_gop_packed,
+                               walk_stream, _mv_unique)
 
     arr = np.frombuffer(bytes(data), dtype=np.uint8)
     with metrics.timers.stage("parse"):
@@ -369,15 +313,11 @@ def _transcode_packed(data: bytes, sink, *, impl: str,
         with metrics.timers.stage("parse"):
             g = parse_gop_packed(arr, groups[gi], seq, meta, 0, pool=pool,
                                  n_threads=n_parse_threads, index=gi)
-            from .packed_parse import _mv_unique
-            from ..kernels.decode import mv_capacity_for
-
-            uniqs = [_mv_unique(ft.mb_mv) for ft in g.fts]
-            gcap, cap = mv_capacity_for(
-                max((len(u[0]) + 1 for u in uniqs), default=1), cap)
+            uniqs = ([_mv_unique(ft.mb_mv) for ft in g.fts]
+                     if mc_impl == "mvset" else [])
+            gcap, cap, g.mc_impl = _mv_plan(mc_impl, uniqs, cap)
             if gcap:
                 attach_mvset(g, gcap, seq, meta, uniqs=uniqs)
-            g.mc_impl = "mvset" if gcap else "gather"
             # start the host->device transfer now (async): it overlaps
             # the next GOP's parse instead of serialising into dispatch
             g.device_stacked = jax.device_put(g.stacked)
@@ -393,7 +333,7 @@ def _transcode_packed(data: bytes, sink, *, impl: str,
                              n_comps=meta.n_components)
             outs, _ = decode_gop_scan(
                 g.device_stacked, refs, consts, quirk_oddify_zeros,
-                mc_impl=g.mc_impl, impl=impl)
+                mc_impl=g.mc_impl)
         # overlap: host parses the next GOP while the device decodes
         nxt = parse_one(todo[i + 1], pool) if i + 1 < len(todo) else None
         with metrics.timers.stage("device_wait"):

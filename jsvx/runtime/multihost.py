@@ -1,16 +1,16 @@
-"""Multi-host decoding: GOP manifest over DCN, chips over ICI.
+"""Multi-host decoding: a GOP manifest across hosts, devices within each.
 
 BASELINE.md config 5: GOPs distributed across N >= 2 hosts with frames /
 slice-rows across each host's chips.  GOPs are closed decode units keyed
 by the container's seek index, so the cross-host protocol degenerates to
-a *work manifest* — no tensor traffic crosses DCN, only byte ranges and
+a *work manifest* — no tensor traffic crosses hosts, only byte ranges and
 completion records.  This module provides:
 
-* :func:`initialize` — ``jax.distributed`` bootstrap for a pod slice;
+* :func:`initialize` — ``jax.distributed`` bootstrap for a cluster;
 * :class:`GopManifest` — the manifest: GOP byte spans from the key map
   (or a start-code scan), static round-robin assignment per process, and
   durable completion tracking (JSON journal) giving GOP-granular
-  checkpoint/resume — the TPU analog of the reference's key-map
+  checkpoint/resume — the batch analog of the reference's key-map
   restartability (``decoders/jsv.js:282-350``; SURVEY.md section 5).
 """
 
@@ -37,8 +37,8 @@ def initialize(coordinator_address: str | None = None,
     single-process when no cluster env is present.  On the CPU backend
     (tests / virtual pods) the gloo collectives layer is enabled first so
     the global device mesh genuinely spans processes — the same
-    controller-per-host shape as a real pod slice, with gloo standing in
-    for ICI/DCN.  ``num_local_devices`` forces the per-process device
+    controller-per-host shape as a real cluster, with gloo standing in
+    for the interconnect.  ``num_local_devices`` forces the per-process device
     count (CPU backend only; call before any backend use).
     """
     import jax
@@ -46,11 +46,8 @@ def initialize(coordinator_address: str | None = None,
     if coordinator_address is not None:
         plats = (jax.config.jax_platforms or "")
         if "cpu" in str(plats).split(","):
-            try:
-                jax.config.update("jax_cpu_collectives_implementation",
-                                  "gloo")
-            except Exception:          # older jaxlib without gloo
-                pass
+            jax.config.update("jax_cpu_collectives_implementation",
+                              "gloo")
         if num_local_devices is not None:
             try:
                 jax.config.update("jax_num_cpu_devices",

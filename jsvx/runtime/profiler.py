@@ -7,7 +7,7 @@ The reference has only console logging and ad-hoc frame-lateness counters
   device decode, color, sink) with EMA rates;
 * :class:`FpsMeter`   — sliding-window frames/s;
 * :func:`device_trace` — context manager around ``jax.profiler.trace``
-  for XLA/TPU timeline capture;
+  for XLA device timeline capture;
 * :class:`Metrics`    — counter/gauge registry that serialises to one
   JSON line (the shape the bench driver consumes).
 """

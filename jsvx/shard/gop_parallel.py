@@ -9,8 +9,6 @@ single-chip path.
 
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
@@ -18,9 +16,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from ..kernels.decode import DecodeConstants, decode_frame_planes
 
 
-def _decode_gop_core(stacked, init_refs, consts, quirk):
+def _decode_gop_core(stacked, init_refs, consts, quirk, mc_impl):
     def step(refs, frame):
-        planes = decode_frame_planes(frame, refs, consts, quirk)
+        planes = decode_frame_planes(frame, refs, consts, quirk,
+                                     mc_impl=mc_impl)
         return planes, planes
 
     final, outs = jax.lax.scan(step, init_refs, stacked)
@@ -37,7 +36,12 @@ def decode_gops_parallel(batch: dict, coded_h: int, coded_w: int,
     ``(n_gops, n_frames, ...)`` — n_gops must divide by the mesh axis size
     (pad short batches with repeated GOPs and drop the extras).  Returns
     stacked planes ``(n_gops, n_frames, H, W)`` sharded the same way.
+    Each GOP decodes with :func:`jsvx.pipeline.gop.decode_backend`'s
+    MC formulation, exactly as the single-device scan does.
     """
+    from ..pipeline.gop import decode_backend
+
+    mc_impl = decode_backend()
     n_gops = batch["is_p"].shape[0]
     n_comps = 4 if "a" in batch else 3
     batch = jax.tree.map(
@@ -52,10 +56,10 @@ def decode_gops_parallel(batch: dict, coded_h: int, coded_w: int,
             refs.append(jnp.zeros((n, coded_h, coded_w), jnp.uint8))
         return tuple(refs)
 
-    @functools.partial(jax.jit, static_argnames=())
+    @jax.jit
     def run(batch, refs):
         fn = jax.vmap(lambda s, r: _decode_gop_core(
-            s, r, consts, quirk_oddify_zeros))
+            s, r, consts, quirk_oddify_zeros, mc_impl))
         return fn(batch, refs)
 
     refs = jax.device_put(

@@ -5,8 +5,8 @@ boundary-row exchange".  Dequant and IDCT are block-local, so a row shard
 needs no communication; only P-frame motion compensation reads up to
 ``halo`` rows past the shard boundary.  Those boundary strips of the
 *reconstructed reference planes* are exchanged once per frame with
-``lax.ppermute`` over the ``rows`` mesh axis — the ICI-native equivalent of
-the reference's single-GPU texture rebind (``decoders/jsv.js:1320``).
+``lax.ppermute`` over the ``rows`` mesh axis — the multi-device equivalent
+of the reference's single-GPU texture rebind (``decoders/jsv.js:1320``).
 
 The required halo is ``8 * forward_f + 1`` pixels of luma (motion range is
 ``+/-(16*forward_f - 1)`` half-pel, jsv.js:850-855).  By default the halo
@@ -106,25 +106,21 @@ def exchange_row_halo(local: jax.Array, halo: int,
 
 
 def _decode_frame_local(frame, refs, consts, halo_y, axis_name, h_globals,
-                        quirk, mc_impl: str = "gather"):
+                        quirk, mc_impl: str):
     """Per-device body: decode one frame's local row shard of all planes.
 
-    ``mc_impl`` selects the per-shard compute:
+    ``mc_impl`` selects the per-shard prediction:
 
-    * ``"pallas"`` — the TPU kernels inside shard_map: distinct-MV MC
-      on the halo-extended shard (:func:`predict_plane_mvset_pallas`)
-      feeding the fused dequant+IDCT+add recon kernel
-      (:func:`fused_recon_plane`) — the multi-chip perf path;
-    * ``"mvset"``  — same decomposition in XLA ops (portable);
+    * ``"mvset"``  — distinct-MV slices of the halo-extended shard;
     * ``"gather"`` — exact per-pixel path, global-coordinate clamping.
     """
-    from ..kernels.decode import comp_is_chroma, frame_comp_keys
+    from ..kernels.decode import (comp_is_chroma, dequant_plane,
+                                  frame_comp_keys, idct_plane,
+                                  predict_plane_mvset)
 
     idx = jax.lax.axis_index(axis_name)
     outs = []
-    use_mvset = mc_impl in ("mvset", "pallas") and "mv_table" in frame
-    use_pallas = mc_impl == "pallas" and "mv_table" in frame
-    interpret = jax.devices()[0].platform == "cpu"
+    use_mvset = mc_impl == "mvset" and "mv_table" in frame
     for comp, key in enumerate(frame_comp_keys(frame)):
         halo = halo_y // 2 if comp_is_chroma(comp) else halo_y
         local_ref = refs[comp]
@@ -133,40 +129,13 @@ def _decode_frame_local(frame, refs, consts, halo_y, axis_name, h_globals,
             ext = exchange_row_halo(local_ref, halo, axis_name)
         else:
             # motion range exceeds the neighbour shard: all-gather the
-            # reference plane instead (bit-identical, more ICI traffic)
+            # reference plane instead (bit-identical, more traffic)
             ext = gather_row_halo(local_ref, halo, axis_name)
         if use_mvset:
-            from ..kernels.decode import (dequant_plane, idct_plane,
-                                          predict_plane_mvset)
-
             ci = frame[key]
-            hb_halo = halo // 8
-            pad_blk = ((hb_halo, hb_halo), (0, 0))
+            pad_blk = ((halo // 8, halo // 8), (0, 0))
             idx_ext = jnp.pad(ci["mv_idx"], pad_blk, mode="edge")
             rep_ext = jnp.pad(ci["rep_add"], pad_blk, mode="edge")
-            if use_pallas:
-                from ..kernels.pallas_decode import (expand_sideband,
-                                                     fused_recon_plane)
-                from ..kernels.pallas_mc import predict_plane_mvset_pallas
-
-                lo_ext = hi_ext = None
-                if "mv_lo" in ci:
-                    lo_ext = jnp.pad(ci["mv_lo"], (hb_halo, hb_halo),
-                                     mode="edge")
-                    hi_ext = jnp.pad(ci["mv_hi"], (hb_halo, hb_halo),
-                                     mode="edge")
-                pred = predict_plane_mvset_pallas(
-                    ext, frame["mv_table"], idx_ext, rep_ext,
-                    comp_is_chroma(comp), pad=max(halo, 8),
-                    interpret=interpret, n_valid=frame.get("mv_count"),
-                    lo_rows=lo_ext,
-                    hi_rows=hi_ext)[halo:halo + h_local]
-                pred = pred * frame["is_p"].astype(jnp.int32)
-                mult, flags = expand_sideband(ci, consts, frame["is_p"])
-                outs.append(fused_recon_plane(
-                    ci["levels"].astype(jnp.int16), mult, flags, pred,
-                    quirk=quirk, interpret=interpret))
-                continue
             pred = predict_plane_mvset(
                 ext, frame["mv_table"], idx_ext, rep_ext,
                 comp_is_chroma(comp),
@@ -186,12 +155,57 @@ def _decode_frame_local(frame, refs, consts, halo_y, axis_name, h_globals,
     return tuple(outs)
 
 
+def _comp_spec(lead: tuple, rows_axis: str, has_mvset: bool) -> dict:
+    """PartitionSpecs of one component's arrays: ``lead`` axes, then the
+    plane/block rows sharded over ``rows_axis``."""
+    d = dict(levels=P(*lead, rows_axis, None),
+             lnz=P(*lead, rows_axis, None),
+             q=P(*lead, rows_axis, None),
+             intra=P(*lead, rows_axis, None),
+             mv=P(*lead, rows_axis, None, None),
+             rep_add=P(*lead, rows_axis, None))
+    if has_mvset:
+        d["mv_idx"] = P(*lead, rows_axis, None)
+    return d
+
+
+def _top_spec(tree: dict, lead: tuple, rows_axis: str) -> dict:
+    """PartitionSpecs of a stacked frame pytree (components + per-frame
+    scalars and the replicated distinct-MV table)."""
+    from ..kernels.decode import frame_comp_keys
+
+    has_mvset = "mv_table" in tree
+    spec = {k: _comp_spec(lead, rows_axis, has_mvset)
+            for k in frame_comp_keys(tree)}
+    spec["is_p"] = P(*lead)
+    if "f_code" in tree:
+        spec["f_code"] = P(*lead)
+    if has_mvset:
+        spec["mv_table"] = P(*lead, None, None)
+        if "mv_count" in tree:
+            spec["mv_count"] = P(*lead)
+    return spec
+
+
+def _halo_and_mc(tree: dict, halo_y: int | None,
+                 mc_impl: str | None) -> tuple[int, str]:
+    if halo_y is None:
+        halo_y = derive_halo_y(tree)
+    if mc_impl is None:
+        from ..pipeline.gop import decode_backend
+
+        mc_impl = decode_backend()
+    if mc_impl == "mvset" and "mv_table" in tree and halo_y % 16:
+        raise ValueError("mvset MC needs halo_y a multiple of 16")
+    return halo_y, mc_impl
+
+
 def decode_gop_rows_sharded(stacked: dict, init_refs: tuple,
                             consts: DecodeConstants, mesh: Mesh,
                             axis_name: str = "rows",
                             halo_y: int | None = None,
                             quirk_oddify_zeros: bool = False,
-                            mc_impl: str = "mvset"):
+                            mc_impl: str | None = None):
     """Decode a stacked GOP with every plane row-sharded over ``axis_name``.
 
     ``stacked`` as produced by :func:`jsvx.pipeline.gop.stack_device_frames`
@@ -203,49 +217,15 @@ def decode_gop_rows_sharded(stacked: dict, init_refs: tuple,
     ``halo_y=None`` (default) derives the halo from the GOP's recorded
     f_code (:func:`derive_halo_y`); when it reaches the local shard
     height the per-frame exchange transparently becomes an all-gather of
-    the reference planes (:func:`gather_row_halo`).
+    the reference planes (:func:`gather_row_halo`).  ``mc_impl=None``
+    takes :func:`jsvx.pipeline.gop.decode_backend`'s formulation.
     """
-    if halo_y is None:
-        halo_y = derive_halo_y(stacked)
-    if mc_impl == "mvset" and "mv_table" in stacked:
-        assert halo_y % 16 == 0, "mvset MC needs halo_y a multiple of 16"
-    from ..kernels.decode import frame_comp_keys
-
-    comp_keys = frame_comp_keys(stacked)
-    n_comps = len(comp_keys)
+    halo_y, mc_impl = _halo_and_mc(stacked, halo_y, mc_impl)
+    n_comps = len(init_refs)
     h_globals = tuple(r.shape[0] for r in init_refs)
 
-    has_mvset = "mv_table" in stacked
-    has_sideband = "mult" in stacked["y"]
-    has_bounds = "mv_lo" in stacked["y"]
-
-    def comp_spec():
-        d = dict(levels=P(None, axis_name, None),
-                 lnz=P(None, axis_name, None),
-                 q=P(None, axis_name, None),
-                 intra=P(None, axis_name, None),
-                 mv=P(None, axis_name, None, None),
-                 rep_add=P(None, axis_name, None))
-        if has_mvset:
-            d["mv_idx"] = P(None, axis_name, None)
-        if has_bounds:
-            # per-block-row MC index bounds shard with their rows
-            d["mv_lo"] = P(None, axis_name)
-            d["mv_hi"] = P(None, axis_name)
-        if has_sideband:
-            d["mult"] = P(None, axis_name, None)
-            d["flags"] = P(None, axis_name, None)
-        return d
-
-    top_spec = {k: comp_spec() for k in comp_keys}
-    top_spec["is_p"] = P(None)
-    if "f_code" in stacked:
-        top_spec["f_code"] = P(None)
-    if has_mvset:
-        top_spec["mv_table"] = P(None, None, None)   # replicated
-        if "mv_count" in stacked:
-            top_spec["mv_count"] = P(None)
-    in_specs = (top_spec, (P(axis_name, None),) * n_comps)
+    in_specs = (_top_spec(stacked, (None,), axis_name),
+                (P(axis_name, None),) * n_comps)
     out_specs = ((P(None, axis_name, None),) * n_comps,
                  (P(axis_name, None),) * n_comps)
 
@@ -270,55 +250,20 @@ def decode_gops_2d_sharded(batch: dict, init_refs: tuple,
                            gop_axis: str = "gop", rows_axis: str = "rows",
                            halo_y: int | None = None,
                            quirk_oddify_zeros: bool = False,
-                           mc_impl: str = "mvset"):
+                           mc_impl: str | None = None):
     """The full two-axis step: GOP batch data-parallel over ``gop_axis``
     (DP) x slice-rows over ``rows_axis`` (SP) with per-frame halo exchange.
 
     ``batch`` leaves have leading axes ``(n_gops, n_frames, ...)``;
     ``init_refs`` planes are ``(n_gops, H, W)``.  This is the layout a
-    multi-host pod runs: GOPs across hosts (DCN-distributed manifest),
-    rows across each host's chips (ICI halo exchange).
+    multi-host deployment runs: GOPs across hosts (distributed manifest),
+    rows across each host's devices (halo exchange).
     """
-    if halo_y is None:
-        halo_y = derive_halo_y(batch)
-    if mc_impl == "mvset" and "mv_table" in batch:
-        assert halo_y % 16 == 0, "mvset MC needs halo_y a multiple of 16"
-    from ..kernels.decode import frame_comp_keys
-
-    comp_keys = frame_comp_keys(batch)
-    n_comps = len(comp_keys)
+    halo_y, mc_impl = _halo_and_mc(batch, halo_y, mc_impl)
+    n_comps = len(init_refs)
     h_globals = tuple(r.shape[1] for r in init_refs)
 
-    has_mvset = "mv_table" in batch
-    has_sideband = "mult" in batch["y"]
-    has_bounds = "mv_lo" in batch["y"]
-
-    def comp_spec():
-        d = dict(levels=P(gop_axis, None, rows_axis, None),
-                 lnz=P(gop_axis, None, rows_axis, None),
-                 q=P(gop_axis, None, rows_axis, None),
-                 intra=P(gop_axis, None, rows_axis, None),
-                 mv=P(gop_axis, None, rows_axis, None, None),
-                 rep_add=P(gop_axis, None, rows_axis, None))
-        if has_mvset:
-            d["mv_idx"] = P(gop_axis, None, rows_axis, None)
-        if has_bounds:
-            d["mv_lo"] = P(gop_axis, None, rows_axis)
-            d["mv_hi"] = P(gop_axis, None, rows_axis)
-        if has_sideband:
-            d["mult"] = P(gop_axis, None, rows_axis, None)
-            d["flags"] = P(gop_axis, None, rows_axis, None)
-        return d
-
-    top_spec = {k: comp_spec() for k in comp_keys}
-    top_spec["is_p"] = P(gop_axis, None)
-    if "f_code" in batch:
-        top_spec["f_code"] = P(gop_axis, None)
-    if has_mvset:
-        top_spec["mv_table"] = P(gop_axis, None, None, None)
-        if "mv_count" in batch:
-            top_spec["mv_count"] = P(gop_axis, None)
-    in_specs = (top_spec,
+    in_specs = (_top_spec(batch, (gop_axis, None), rows_axis),
                 (P(gop_axis, rows_axis, None),) * n_comps)
     out_specs = ((P(gop_axis, None, rows_axis, None),) * n_comps,
                  (P(gop_axis, rows_axis, None),) * n_comps)

@@ -1,13 +1,14 @@
-"""Distinct-MV capacity scaling bench (VERDICT r1 item 9).
+"""Motion-compensation formulations at 1080p: per-pixel gather vs mvset.
 
-The fast MC path's cost scales with the distinct-MV table capacity K
-(one VMEM window DMA + blend per table row, :mod:`..kernels.pallas_mc`);
-above mv_bucket's 255-row ceiling the decoder falls back to the exact
-per-pixel gather.  This bench measures one 1080p P-frame prediction at
-K in {8..255} and the gather fallback, so the capacity-overflow regime
-has a known cost instead of a folklore cliff.
+The XLA decode path can predict a plane two ways
+(:func:`jsvx.kernels.decode.decode_frame_plane`): a per-pixel gather, or
+the distinct-MV decomposition ("mvset": one slice + blend per distinct
+vector, so its cost grows with the table capacity K).  This bench times
+one 1920x1088 luma prediction both ways at K in {8, 32, 64, 128, 255}
+on device-resident inputs, checks the two agree bit for bit, and is what
+:data:`jsvx.pipeline.gop.BACKENDS` chooses a platform's formulation from.
 
-Run on the target chip: ``python -m jsvx.tools.bench_mc``
+Run on the device: ``python -m jsvx.tools.bench_mc``
 """
 
 from __future__ import annotations
@@ -18,81 +19,59 @@ import time
 import numpy as np
 
 
-def _one(h, w, k_cap, n_distinct, impl, reps=5):
+def _median_s(fn, args, reps: int) -> float:
     import jax
-    import jax.numpy as jnp
+
+    for _ in range(3):                               # compile, clocks up
+        jax.block_until_ready(fn(*args))
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def mc_table(h: int = 1088, w: int = 1920,
+             ks: tuple = (8, 32, 64, 128, 255), reps: int = 5) -> list:
+    """One row per K: median milliseconds per plane for gather and
+    mvset, with the K distinct vectors spread at random over the
+    macroblocks (half-pel components in [-48, 48])."""
+    import jax
 
     from ..kernels.decode import predict_plane, predict_plane_mvset
 
-    rng = np.random.default_rng(k_cap + n_distinct)
-    hb, wb = h // 8, w // 8
-    rep = np.zeros((hb, wb), np.int32)
-    if impl == "gather":
-        mv_tbl = np.zeros((max(n_distinct, 1), 2), np.int32)
-        mv_tbl[1:] = rng.integers(-48, 49, (len(mv_tbl) - 1, 2))
-        idx = rng.integers(0, len(mv_tbl), (hb, wb))
-        mv_blk = mv_tbl[idx].astype(np.int32)
-
-        @jax.jit
-        def run(ref, mv):
-            return jnp.sum(predict_plane(ref, mv, jnp.asarray(rep),
-                                         False).astype(jnp.int32))
-
-        args = lambda: (jax.device_put(                    # noqa: E731
-            rng.integers(0, 256, (h, w)).astype(np.uint8)),
-            jnp.asarray(mv_blk))
-    else:
-        mv_tbl = np.zeros((k_cap, 2), np.int32)
-        mv_tbl[1:n_distinct] = rng.integers(
-            -48, 49, (n_distinct - 1, 2))
-        idx = rng.integers(0, n_distinct, (hb, wb)).astype(np.int32)
-        if impl == "pallas":
-            from ..kernels.pallas_mc import predict_plane_mvset_pallas
-
-            @jax.jit
-            def run(ref, tbl):
-                return jnp.sum(predict_plane_mvset_pallas(
-                    ref, tbl, jnp.asarray(idx), jnp.asarray(rep), False,
-                    n_valid=jnp.int32(n_distinct)).astype(jnp.int32))
-        else:
-            @jax.jit
-            def run(ref, tbl):
-                return jnp.sum(predict_plane_mvset(
-                    ref, tbl, jnp.asarray(idx), jnp.asarray(rep),
-                    False).astype(jnp.int32))
-
-        args = lambda: (jax.device_put(                    # noqa: E731
-            rng.integers(0, 256, (h, w)).astype(np.uint8)),
-            jnp.asarray(mv_tbl))
-
-    a = args()
-    np.asarray(run(*a))                    # compile
-    best = float("inf")
-    for _ in range(reps):
-        a = args()
-        t0 = time.perf_counter()
-        np.asarray(run(*a))
-        best = min(best, time.perf_counter() - t0)
-    return best
+    gather = jax.jit(lambda ref, mv, rep: predict_plane(ref, mv, rep, False))
+    mvset = jax.jit(lambda ref, tbl, idx, rep: predict_plane_mvset(
+        ref, tbl, idx, rep, False))
+    rows = []
+    for k in ks:
+        rng = np.random.default_rng(k)
+        hb, wb = h // 8, w // 8
+        tbl = np.zeros((k, 2), np.int32)
+        tbl[1:] = rng.integers(-48, 49, (k - 1, 2))
+        idx = rng.integers(0, k, (hb, wb)).astype(np.int32)
+        ref = jax.device_put(rng.integers(0, 256, (h, w)).astype(np.uint8))
+        rep = jax.device_put(np.zeros((hb, wb), np.int32))
+        g_args = (ref, jax.device_put(tbl[idx]), rep)
+        m_args = (ref, jax.device_put(tbl), jax.device_put(idx), rep)
+        if not np.array_equal(np.asarray(gather(*g_args)),
+                              np.asarray(mvset(*m_args))):
+            raise AssertionError(f"gather != mvset at K={k}")
+        rows.append({
+            "k": k,
+            "gather_ms": _median_s(gather, g_args, reps) * 1e3,
+            "mvset_ms": _median_s(mvset, m_args, reps) * 1e3,
+        })
+    return rows
 
 
 def main() -> None:
     import jax
 
-    h, w = 1088, 1920
-    platform = jax.devices()[0].platform
-    rows = []
-    for k in (8, 32, 64, 128, 255):
-        for impl in (("pallas", "mvset") if platform != "cpu"
-                     else ("mvset",)):
-            dt = _one(h, w, k, k, impl)
-            rows.append({"impl": impl, "k": k,
-                         "ms_per_plane": round(dt * 1000, 2)})
-    dt = _one(h, w, 0, 300, "gather", reps=2)
-    rows.append({"impl": "gather(fallback >255 MVs)", "k": 300,
-                 "ms_per_plane": round(dt * 1000, 2)})
-    print(json.dumps({"platform": platform, "plane": f"{w}x{h} luma",
-                      "rows": rows}))
+    d = jax.devices()[0]
+    print(json.dumps({"platform": d.platform, "kind": d.device_kind,
+                      "plane": "1920x1088 luma", "rows": mc_table()}))
 
 
 if __name__ == "__main__":

@@ -2,7 +2,7 @@
 
 Decodes a JSV byte stream with the shared Python parser and reconstructs
 frames with exact float64 math per :mod:`jsvx.tools.refmath`.  This is the
-accuracy yardstick: the TPU kernels must land at least as close to this
+accuracy yardstick: the device kernels must land at least as close to this
 oracle as the reference's integer-shader reconstruction does
 (``reconstruct_frame_intsim`` reproduces that integer path bit-for-bit for
 the comparison).
@@ -215,7 +215,7 @@ def reconstruct_frame_intsim(ft: FrameTensors, seq: SequenceInfo,
                              ref: tuple | None) -> tuple:
     """Bit-exact model of the reference WebGL *integer* path, including its
     0.4x pass-1 packing scale and truncating descale — the baseline whose
-    oracle-PSNR the TPU kernels must meet or beat."""
+    oracle-PSNR the device kernels must meet or beat."""
     planes = []
     for comp in range(ft.n_comps):
         d = dequant_plane(ft, seq, comp, quirk_oddify_zeros=True)

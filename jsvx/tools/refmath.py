@@ -3,7 +3,7 @@
 The single source of truth for what "reference reconstruction" means in this
 framework: the float-exact formulation of the reference decoder's GPU math
 (``decoders/shaders/mpeg1video.js``), shared by the fixture encoder's closed
-decode loop, the float64 oracle, and the tests that pin the TPU kernels.
+decode loop, the float64 oracle, and the tests that pin the device kernels.
 
 Scale conventions (derived from the integer shader path, which computes at
 256x pixel scale with an AAN prescale of 32 and a final ``(x+128)/256``

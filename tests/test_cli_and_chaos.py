@@ -190,7 +190,7 @@ def test_cli_warm_populates_cache(tmp_path, capsys, monkeypatch):
     path = str(tmp_path / "warmclip.jsv")
     open(path, "wb").write(data)
     cache = str(tmp_path / "jit_cache")
-    monkeypatch.setenv("JSVX_JIT_CACHE", cache)
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", cache)
     assert cli_main(["warm", path]) == 0
     rep = json.loads(capsys.readouterr().out)
     assert rep["frames"] == 4

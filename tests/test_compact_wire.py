@@ -8,8 +8,8 @@ tests pin bit-exactness against the dense path (the round-1/2 wire) at
 the plane level and end-to-end, for 3- and 4-component streams, with
 slice/frame threading, and for the corrupt-stream fallback.  The
 reference uploads dense coefficient textures per picture
-(``decoders/jsv.js:1206-1243``); the compact wire is the TPU-native
-improvement on it.
+(``decoders/jsv.js:1206-1243``); the compact wire is an improvement on
+it.
 """
 
 import numpy as np
@@ -131,9 +131,10 @@ def test_transcode_compact_equals_dense_end_to_end(yuva):
                    half_pel_refine=True)
     got_c, got_d = {}, {}
     rc = transcode(data, lambda g, o: got_c.__setitem__(
-        g, [np.asarray(x) for x in o]), impl="xla")
+        g, [np.asarray(x) for x in o]))
     rd = _transcode_packed(data, lambda g, o: got_d.__setitem__(
-        g, [np.asarray(x) for x in o]), impl="xla", manifest=None,
+        g, [np.asarray(x) for x in o]), mc_impl="mvset",
+        manifest=None,
         process_id=0, process_count=1, n_parse_threads=2,
         quirk_oddify_zeros=False, metrics=Metrics())
     assert rc.n_frames == rd.n_frames == 10
@@ -150,7 +151,7 @@ def test_transcode_quirk_uses_dense_path():
     data = _encode(clip, gop_size=4, quantizer_scale=4)
     got = {}
     r = transcode(data, lambda g, o: got.__setitem__(g, o),
-                  impl="xla", quirk_oddify_zeros=True)
+                  quirk_oddify_zeros=True)
     assert r.n_frames == 4 and got
 
 
@@ -185,9 +186,10 @@ def test_dirty_stream_falls_back_to_dense():
     # agrees with the dense path bit for bit
     got_c, got_d = {}, {}
     transcode(data, lambda g, o: got_c.__setitem__(
-        g, [np.asarray(x) for x in o]), impl="xla")
+        g, [np.asarray(x) for x in o]))
     _transcode_packed(data, lambda g, o: got_d.__setitem__(
-        g, [np.asarray(x) for x in o]), impl="xla", manifest=None,
+        g, [np.asarray(x) for x in o]), mc_impl="mvset",
+        manifest=None,
         process_id=0, process_count=1, n_parse_threads=1,
         quirk_oddify_zeros=False, metrics=Metrics())
     for g in got_d:

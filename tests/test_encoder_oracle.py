@@ -107,7 +107,7 @@ def test_motion_vectors_exercised(small_clip):
 
 def test_intsim_tracks_oracle(tiny_clip):
     """Reference integer-path simulation stays close to the float oracle
-    (this gap is the accuracy budget the TPU kernels must beat)."""
+    (this gap is the accuracy budget the device kernels must beat)."""
     data, _ = _encode(tiny_clip[:2], gop_size=2, quantizer_scale=4)
     dec = OracleDecoder(data)
     r, idx, parser = dec.reader, dec.index, dec.parser

@@ -1,6 +1,6 @@
 """Device decode path vs the float64 oracle.
 
-The accuracy gate (BASELINE.md): the TPU path must match the oracle at
+The accuracy gate (BASELINE.md): the device path must match the oracle at
 least as closely as the reference's integer shader path does.
 """
 
@@ -19,11 +19,10 @@ from jsvx.tools.oracle import (OracleDecoder, reconstruct_frame,
 from jsvx.tools.psnr import psnr
 
 
-def _walk(data, emit_sideband=False):
+def _walk(data):
     """(FrameTensors, seq) pairs via the shared parser."""
     dec = OracleDecoder(data)
     r, idx, parser = dec.reader, dec.index, dec.parser
-    parser.emit_sideband = emit_sideband
     while True:
         nxt = idx.next_code(r.byte_pos)
         if nxt is None:

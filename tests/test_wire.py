@@ -127,10 +127,10 @@ def test_wire_decode_matches_compact_decode():
     refs = zero_refs(seq.coded_height, seq.coded_width)
     old, _ = decode_gop_scan_compact(
         jax.device_put(g.stacked), refs, consts, seq.mb_height,
-        seq.mb_width, mc_impl="mvset", impl="xla")
+        seq.mb_width, mc_impl="mvset")
     spec = wire_spec(g.stacked)
     new, _ = decode_gop_scan_wire(
         jax.device_put(flatten_wire(g.stacked, spec)), spec, refs, consts,
-        seq.mb_height, seq.mb_width, mc_impl="mvset", impl="xla")
+        seq.mb_height, seq.mb_width, mc_impl="mvset")
     for a, b in zip(old, new):
         assert np.array_equal(np.asarray(a), np.asarray(b))

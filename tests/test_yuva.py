@@ -5,7 +5,8 @@ The reference parses the container's alpha flag and sizes its GL pools by
 the alpha coding undefined; jsvx defines it concretely (4 extra luma-like
 blocks per macroblock — see :class:`jsvx.bitstream.parser.StreamParser`)
 and implements it through every layer: encoder, both parser back-ends,
-oracle, XLA / Pallas / fused kernels, color convert, and the Decoder API.
+oracle, both MC formulations of the device path, color convert, and the
+Decoder API.
 """
 
 import numpy as np
@@ -82,10 +83,9 @@ def test_yuva_python_and_native_parsers_identical(tiny_clip_yuva):
 
 
 def test_yuva_device_paths_match_oracle(tiny_clip_yuva):
-    """XLA, two-kernel Pallas, and fused Pallas all decode the alpha
-    plane and agree with the oracle within the usual 1 LSB."""
-    from jsvx.kernels.pallas_decode import decode_frame_planes_pallas
-    from jsvx.kernels.pallas_fused import decode_frame_planes_fused
+    """The gather and mvset MC formulations both decode the alpha
+    plane, agree bit for bit, and match the oracle within the usual
+    1 LSB."""
 
     data = _encode(tiny_clip_yuva, gop_size=3, quantizer_scale=4)
     consts = refs = ref_o = None
@@ -103,14 +103,11 @@ def test_yuva_device_paths_match_oracle(tiny_clip_yuva):
         assert "a" in d
         oracle = reconstruct_frame(ft, seq, ref_o)
         xla = decode_frame_planes(d, refs, consts, mc_impl="mvset")
-        pal = decode_frame_planes_pallas(d, refs, consts, interpret=True,
-                                         mc_impl="mvset")
-        fus = decode_frame_planes_fused(d, refs, consts, interpret=True)
-        assert len(xla) == len(pal) == len(fus) == 4
+        gat = decode_frame_planes(d, refs, consts, mc_impl="gather")
+        assert len(xla) == len(gat) == 4
         for c in range(4):
             a = np.asarray(xla[c])
-            assert np.array_equal(a, np.asarray(pal[c]))
-            assert np.array_equal(a, np.asarray(fus[c]))
+            assert np.array_equal(a, np.asarray(gat[c]))
             assert np.abs(a.astype(int)
                           - oracle[c].astype(int)).max() <= 1
         ref_o = oracle
